@@ -94,7 +94,7 @@ def config5_cobaya(n_runs=3, seed0=400, verbose=1):
 
 
 if __name__ == "__main__":
-    if "--tpu" not in sys.argv:
+    if "--accelerator" not in sys.argv:
         import jax
         jax.config.update("jax_default_device", "cpu")
     n_runs = int(sys.argv[1]) if len(sys.argv) > 1 and \

@@ -15,13 +15,13 @@ campaign's saved checkpoints, sweeping the knobs the VERDICT names:
   whenever its ESS merely matches the input, instead of doubling it).
 
 Each row re-measures the same analytic-moments KL as benchmarks/d16.py,
-so rows are directly comparable to results_d{d}_tpu.json.
+so rows are directly comparable to results_d{d}.json.
 
 Writes benchmarks/results_d16_knobs.json.
 
 Usage:
   python benchmarks/d16_knobs.py [--d 16] [--seeds 100,101,102]
-      [--ckpt-root /tmp/gpry_tpu_d16] [--nlives 50d,100d,200d]
+      [--ckpt-root benchmarks/ckpt_d16] [--nlives 50d,100d,200d]
 """
 
 import argparse
@@ -33,6 +33,8 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 sys.path.insert(0, os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests"))
 
@@ -81,7 +83,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--d", type=int, default=16)
     ap.add_argument("--seeds", default="100,101,102")
-    ap.add_argument("--ckpt-root", default="/tmp/gpry_tpu_d16")
+    ap.add_argument("--ckpt-root", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "ckpt_d16"))
     ap.add_argument("--nlives", default="50d,100d,200d")
     ap.add_argument("--verbose", type=int, default=1)
     args = ap.parse_args()
@@ -107,7 +110,7 @@ def main():
         json.dump({"rows": all_rows,
                    "note": "final-MC knob study from the campaign "
                            "checkpoints; kl_ns is directly comparable to "
-                           f"results_d{args.d}_tpu.json kl_final"},
+                           f"results_d{args.d}.json kl_final"},
                   f, indent=1, default=float)
     print(f"-> {out}")
 

@@ -185,79 +185,6 @@ def table_evalreduction():
     return lines
 
 
-def table_d16():
-    data = _load("results_d16_tpu.json")
-    if not data:
-        return ["(results_d16_tpu.json missing)"]
-    lines = ["| d | seed | converged | evals to stop | n_finite | "
-             "final KL | attempts | wall |",
-             "|---|------|-----------|---------------|----------|"
-             "----------|----------|------|"]
-    for r in data["runs"]:
-        kl = _fmt(r.get("kl_final"))
-        if r.get("converged") and (r.get("kl_final") or 0) > KL_GATE:
-            kl += "†"
-        lines.append(
-            f"| {data['d']} | {r['seed']} | "
-            f"{'yes' if r.get('converged') else 'no'} | "
-            f"{r.get('n_total', '-')} | {r.get('n_finite', '-')} | "
-            f"{kl} | {r.get('attempts', 1)} | "
-            f"{round(r.get('wall_s', 0) / 60)} min |")
-    return lines
-
-
-def table_d20():
-    data = _load("results_d20_tpu.json")
-    if not data:
-        return ["(results_d20_tpu.json missing)"]
-    lines = ["| d | seed | converged | evals to stop | n_finite | "
-             "final KL | attempts | wall |",
-             "|---|------|-----------|---------------|----------|"
-             "----------|----------|------|"]
-    for r in data["runs"]:
-        kl = _fmt(r.get("kl_final"))
-        if r.get("converged") and (r.get("kl_final") or 0) > KL_GATE:
-            kl += "†"
-        lines.append(
-            f"| {data['d']} | {r['seed']} | "
-            f"{'yes' if r.get('converged') else 'no'} | "
-            f"{r.get('n_total', '-')} | {r.get('n_finite', '-')} | "
-            f"{kl} | {r.get('attempts', 1)} | "
-            f"{round(r.get('wall_s', 0) / 60)} min |")
-    return lines
-
-
-def table_d16_knobs():
-    data = _load("results_d16_knobs.json")
-    if not data:
-        return ["(results_d16_knobs.json missing)"]
-    lines = ["| seed | nlive | KL (raw NS) | KL (refine, 2x-ESS rule) | "
-             "KL (refine, any-gain rule) | NS wall |",
-             "|------|-------|-------------|--------------------------|"
-             "---------------------------|---------|"]
-    for r in data["rows"]:
-        if "error" in r:
-            lines.append(f"| {r['seed']} | - | ERROR | - | - | "
-                         f"{r['error']} |")
-            continue
-
-        def _ref(tag):
-            ref = r.get(tag) or {}
-            kl = _fmt(ref.get("kl"))
-            if not ref.get("refined"):
-                kl += " (kept input)"
-            return kl
-
-        kl_ns = _fmt(r.get("kl_ns"))
-        if (r.get("kl_ns") or 0) > KL_GATE:
-            kl_ns += "†"
-        lines.append(
-            f"| {r['seed']} | {r['nlive']} | {kl_ns} | "
-            f"{_ref('refine_2x')} | {_ref('refine_1x')} | "
-            f"{round(r.get('wall_s_ns', 0) / 60)} min |")
-    return lines
-
-
 def table_grid():
     lines = ["| d | runs | converged | evals to stop (median) | "
              "reference heuristic 3.5 d^2 | final KL (median) | KL gate |",
@@ -317,9 +244,6 @@ TABLES = {
     "nongaussian": table_nongaussian,
     "lcdm": table_lcdm,
     "evalreduction": table_evalreduction,
-    "d16": table_d16,
-    "d16_knobs": table_d16_knobs,
-    "d20": table_d20,
     "grid": table_grid,
     "d12_zeta": table_d12_zeta,
 }

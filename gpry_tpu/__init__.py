@@ -1,6 +1,6 @@
 """
-gpry_tpu — TPU-native active-learning Bayesian inference of expensive
-likelihoods (a from-scratch JAX/XLA rebuild of the capabilities of
+gpry_tpu — accelerator-native active-learning Bayesian inference of
+expensive likelihoods (a from-scratch JAX/XLA rebuild of the capabilities of
 GPry, jonaselgammal/GPry v3.0.0).
 """
 

@@ -65,7 +65,7 @@ def append_lie(family, p: SurrogateParams, x_raw, y_raw):
     """
     Kriging-believer conditioning as a pure O(nmax^2) update on the
     surrogate pytree: append (x, lie) without refitting anything.  This is
-    the TPU-native replacement for the reference's deepcopy + refactorize
+    the device-side replacement for the reference's deepcopy + refactorize
     model cache (gpry/gp_acquisition.py:1522-1555).
 
     Grows the padded buffers when the bucket is exactly full (n == nmax) —

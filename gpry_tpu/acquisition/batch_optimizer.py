@@ -99,8 +99,6 @@ def _optimize_restarts(family, p: SurrogateParams, zeta, noise_std_raw,
     tol = 1e-8 if x0s.dtype == jnp.float64 else 1e-3
     solve = lambda x0: minimize_lbfgs_bounded(neg_acq, x0, lo, hi,
                                               maxiter=maxiter, tol=tol)
-    # plain vmap over restarts (lax.map chunking crashes the TPU compiler,
-    # see models/gp.py LBFGS_CHUNK note)
     xs, _ = jax.vmap(solve)(x0s)
     vals = _acq_values_gated(family, p, zeta, noise_std_raw, xs)
     return xs, vals
@@ -145,26 +143,9 @@ class BatchOptimizer(GenericGPAcquisition):
         bounds = check_and_return_bounds(
             bounds if bounds is not None else self.bounds)
         family = gpr.family
-        # Condition-aware sweep dtype (models/gp.py:sweep_dtype) for
-        # screening, believer lies and final acquisition values.  The
-        # L-BFGS ascent itself stays float32 on accelerators (the
-        # float64-emulated L-BFGS graph does not compile on this TPU
-        # backend — see models/gp.py ladder note); its endpoints are
-        # re-scored in the sweep dtype below, so float32 only ever
-        # *proposes* candidates, never scores them.
+        # Sweep dtype (models/gp.py:sweep_dtype) for screening, the L-BFGS
+        # ascent, believer lies and final acquisition values.
         p = gpr.sweep_params()
-        on_cpu_ = all(dev.platform == "cpu" for dev in p.X.devices())
-
-        def _make_ascent(p_cur):
-            # Rebuilt after every believer append so the ascent optimizes the
-            # *conditioned* acquisition surface for points i>=1 (Kriging-
-            # believer semantics, gpry/gp_acquisition.py:478-497).
-            if not on_cpu_ and p_cur.X.dtype == jnp.float64:
-                from gpry_tpu.models.gp import cast_surrogate
-                return cast_surrogate(p_cur, jnp.float32)
-            return p_cur
-
-        p_ascent = _make_ascent(p)
         # LogExp (the production acquisition) takes the fused fast path;
         # any other configured acq_func is evaluated/ascended through its
         # own jittable ``values`` so the engine optimizes what the user
@@ -233,16 +214,11 @@ class BatchOptimizer(GenericGPAcquisition):
 
             # --- multistart polish of the screened starts
             if self.acq_optimizer in ("lbfgs", "fmin_l_bfgs_b", None):
-                # vmapped L-BFGS ascent (f32 on accelerators; endpoint
-                # values re-scored in the sweep dtype when they differ)
-                adt = p_ascent.X.dtype
-                xs, vals = ascend(p_ascent, jnp.asarray(x0s, adt),
-                                  lo.astype(adt), hi.astype(adt))
-                xs = np.asarray(xs)
-                if p_ascent is not p:
-                    vals = np.asarray(score(p, jnp.asarray(xs, dt)))
-                else:
-                    vals = np.asarray(vals)
+                # vmapped L-BFGS ascent on the *conditioned* acquisition
+                # surface (p is re-conditioned after every believer append,
+                # Kriging-believer semantics, gpry/gp_acquisition.py:478-497)
+                xs, vals = ascend(p, jnp.asarray(x0s, dt), lo, hi)
+                xs, vals = np.asarray(xs), np.asarray(vals)
             else:
                 # gradient-free "sampling" (Powell) fallback or a user
                 # callable (reference: gpry/gp_acquisition.py:502-523)
@@ -271,7 +247,6 @@ class BatchOptimizer(GenericGPAcquisition):
                 # append_lie grows the padded buffers if the bucket is full
                 p = append_lie(family, p, jnp.asarray(best_x[None], dt),
                                jnp.asarray([y_lie], dt))
-                p_ascent = _make_ascent(p)
         self.mean, self.cov = None, None
         return X_out, y_lies, acq_out
 

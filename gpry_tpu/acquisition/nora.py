@@ -8,7 +8,7 @@ the (dead + live) NS sample, and pick a Kriging-believer batch with a
 ranked pool.  The NS sample doubles as the surrogate MC sample used for the
 GaussianKL convergence criterion and mean/cov estimates.
 
-TPU-native mapping (vs the reference's PolyChord-over-MPI):
+Device mapping (vs the reference's PolyChord-over-MPI):
 
 * The NS run is the on-device vectorized sampler (mc.nested) — the same
   fallback chain (polychord -> ultranest, gpry/gp_acquisition.py:650-682)
@@ -101,8 +101,7 @@ class NORA(GenericGPAcquisition):
     # ------------------------------------------------------------- NS running
 
     def _surrogate_sweep_params(self, gpr):
-        # Sweep dtype is condition-aware (gpr.sweep_dtype): float32 on
-        # accelerators only when the estimated f32 error is negligible.
+        # sweep dtype policy: models/gp.py:sweep_dtype
         return gpr.sweep_params()
 
     def _run_ns(self, gpr):
@@ -117,8 +116,8 @@ class NORA(GenericGPAcquisition):
             if not isinstance(iface, InterfaceDevice):
                 return self._run_ns_host(gpr, iface)
         p = self._surrogate_sweep_params(gpr)
-        # NS proposal loop in f32 where allowed — the final sample is
-        # re-scored in the sweep dtype below (models/gp.py:
+        # NS proposal loop in f32 only when asked for — the final sample is
+        # then re-scored in the sweep dtype below (models/gp.py:
         # ns_proposal_params)
         from gpry_tpu.models.gp import ns_proposal_params
         p_ns, corrected = ns_proposal_params(
@@ -130,7 +129,7 @@ class NORA(GenericGPAcquisition):
         max_dead = int(nlive * max(8, 2 * self.d))
         key = jax.random.PRNGKey(int(self.rng.integers(2**31)))
         # DP-shard the per-step chain batch over the available mesh (the
-        # TPU analogue of PolyChord's MPI-parallel live-point evolution)
+        # analogue of PolyChord's MPI-parallel live-point evolution)
         from gpry_tpu.parallel.mesh import available_mesh
         mesh = available_mesh(p_ns.X)
         res = run_nested_device(
@@ -323,8 +322,8 @@ class NORA(GenericGPAcquisition):
             noise_std))
         # Bucket the sweep length to multiples of 256: the NS sample length
         # varies run to run, and every distinct shape costs fresh per-op
-        # TPU compiles (measured ~4.6 s spikes).  -inf mean padding is
-        # acquisition-neutral (values() maps it to -inf).
+        # compiles.  -inf mean padding is acquisition-neutral (values()
+        # maps it to -inf).
         npts = len(y)
         pad = (-npts) % 256
         if pad:

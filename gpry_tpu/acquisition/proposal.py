@@ -3,7 +3,7 @@ Proposal generators for initial samples and acquisition-optimizer restarts.
 
 Reference surface: gpry/proposal.py (443 LoC).  Host-side numpy RNG programs
 (they feed the outer loop, not jitted code), with batched ``get_batch``
-methods so the TPU acquisition engine can draw thousands of screened starts
+methods so the device acquisition engine can draw thousands of screened starts
 in one call instead of the reference's one-at-a-time ``get``.
 """
 

@@ -47,7 +47,7 @@ def get_cobaya_class():
             "cobaya is required for the CobayaWrapper.") from excpt
 
     class CobayaWrapper(Sampler):
-        """GPry-TPU exposed as a Cobaya sampler
+        """gpry_tpu exposed as a Cobaya sampler
         (reference: gpry/cobaya.py:34-340)."""
 
         _defaults = dict(DEFAULTS)

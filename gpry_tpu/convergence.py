@@ -6,7 +6,7 @@ policy — "n"(ecessary), "s"(ufficient), "ns", or "m"(onitor only) — and the
 Runner combines them as: converged iff all necessary criteria hold AND (any
 sufficient holds OR none is declared) (gpry/run.py:1309-1333).
 
-Differences from the reference driven by the TPU design:
+Differences from the reference driven by the device design:
 
 * ``GaussianKL``'s fallback mean/cov estimation runs the on-device ensemble
   MCMC (mc.mcmc) instead of per-MPI-rank Cobaya chains — the surrogate is

@@ -1,9 +1,12 @@
 """
 Checkpointing.
 
-Reference format: 6 dill pickles per checkpoint dir — ``tru.pkl`` (Truth
+Reference format: 6 pickles per checkpoint dir — ``tru.pkl`` (Truth
 re-init dict), ``gpr.pkl``, ``acq.pkl``, ``con.pkl``, ``opt.pkl``,
-``pro.pkl`` (reference: gpry/io.py:12-156).  The same layout is kept so
+``pro.pkl`` (reference: gpry/io.py:12-156).  Objects are written with the
+standard library's ``pickle``; those it cannot serialize (a lambda or
+closure log-likelihood, for example) are written with ``dill``, which is
+imported only then.  The same layout is kept so
 that checkpoint dirs are recognizable, but device arrays inside the GPR are
 converted to host numpy on save and restored on load (the "light"
 checkpoint format the reference's FUTURE.md:33-35 wishes for: arrays +
@@ -11,8 +14,8 @@ hyperparameters, refactorized on load).
 """
 
 import os
+import pickle
 
-import dill
 import numpy as np
 
 _CHECKPOINT_FILES = ("tru.pkl", "gpr.pkl", "acq.pkl", "con.pkl", "opt.pkl",
@@ -52,6 +55,24 @@ def check_checkpoint(path=None):
         return np.full(len(_CHECKPOINT_FILES), False)
     return np.array([os.path.exists(os.path.join(path, f))
                      for f in _CHECKPOINT_FILES])
+
+
+def _dumps(obj):
+    """Serialize with pickle, falling back to dill for what pickle cannot
+    handle (lambdas, closures, locally defined classes)."""
+    try:
+        return pickle.dumps(obj)
+    except (pickle.PicklingError, AttributeError, TypeError):
+        pass
+    try:
+        import dill
+    except ImportError as excpt:
+        raise ImportError(
+            "Checkpointing needs the 'dill' package: the checkpoint holds "
+            "objects that the standard pickle cannot handle, such as a "
+            "lambda or closure log-likelihood.  Install dill or pass a "
+            "module-level function.") from excpt
+    return dill.dumps(obj)
 
 
 def _device_to_host(obj):
@@ -108,7 +129,7 @@ def save_checkpoint(path, truth, gpr, acquisition, convergence, options,
     # first, then all tmp files are renamed into place with os.replace
     # (atomic on POSIX).  A crash mid-dump (SIGKILL, OOM, disk full)
     # therefore NEVER leaves a truncated pickle behind — the crash-resume
-    # machinery (run.Runner resume, run_resilient, benchmarks/d16.py)
+    # machinery (run.Runner resume, run_resilient)
     # would otherwise retry an UnpicklingError forever.  The rename loop
     # narrows the mixed-generation window from seconds of pickling to
     # microseconds of metadata ops; a crash inside it can still mix two
@@ -120,7 +141,7 @@ def save_checkpoint(path, truth, gpr, acquisition, convergence, options,
         for fname, obj in objs.items():
             tmp = os.path.join(path, fname + ".tmp")
             with open(tmp, "wb") as f:
-                dill.dump(obj, f)
+                f.write(_dumps(obj))
             tmp_written.append((tmp, os.path.join(path, fname)))
     except BaseException:
         for fname in objs:        # includes the partially-dumped one
@@ -146,7 +167,8 @@ def read_checkpoint(path, truth=None):
     for fname in _CHECKPOINT_FILES:
         full = os.path.join(path, fname)
         with open(full, "rb") as f:
-            loaded.append(dill.load(f))
+            # a pickle written by dill imports dill while loading
+            loaded.append(pickle.load(f))
     truth_dict, gpr, acq, con, opt, pro = loaded
     _host_to_device(gpr)
     if truth is None and isinstance(truth_dict, dict) and \
@@ -176,6 +198,6 @@ def ensure_gpr(gpr):
         if not os.path.exists(full):
             raise ValueError(f"No GPR checkpoint found at {path}.")
         with open(full, "rb") as f:
-            out = dill.load(f)
+            out = pickle.load(f)
         return _host_to_device(out)
     return gpr

@@ -6,7 +6,7 @@ Reference surface: gpry/ns_interfaces.py (543 LoC) — an ABC with
 PolyChord, UltraNest and nessai.  Here the same contract covers:
 
 * ``InterfaceDevice`` — the on-device vectorized NS (mc.nested), the
-  default and the TPU-native path;
+  default and the device path;
 * ``InterfacePolyChord`` / ``InterfaceUltraNest`` / ``InterfaceNessai`` —
   host-side engines, available when their packages are installed (they are
   optional and absent in this image; importing raises a clear error).
@@ -59,7 +59,7 @@ class NSInterface:
 
 
 class InterfaceDevice(NSInterface):
-    """On-device vectorized NS (the TPU-native default)."""
+    """On-device vectorized NS (the default)."""
 
     def __init__(self, verbose=1, rng=None):
         super().__init__(verbose=verbose)

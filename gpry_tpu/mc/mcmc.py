@@ -1,7 +1,7 @@
 """
 On-device ensemble MCMC over the surrogate.
 
-TPU-native replacement for the reference's Cobaya-MCMC route
+Device replacement for the reference's Cobaya-MCMC route
 (gpry/mc.py:173-325, gpry/convergence.py:430-472): instead of one chain per
 MPI rank, a whole ensemble of adaptive random-walk Metropolis chains runs as
 one vmapped ``lax.scan`` on device.  Used by the GaussianKL convergence

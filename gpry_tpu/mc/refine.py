@@ -9,11 +9,11 @@ reports momKL 0.16-0.51, i.e. the entire headline error was the final
 sampler, not the model.  The reference inherits whatever its external
 sampler produces (gpry/mc.py:173-455) and has no equivalent.
 
-The refinement is the TPU-native estimator: fit a Gaussian-mixture
+The refinement is the device-side estimator: fit a Gaussian-mixture
 proposal to the existing sample's detected modes (host-side MST
 clustering, utils/modes.py), draw a large batch (default 2^16), score the
 surrogate in ONE batched device predict — an embarrassingly parallel
-MXU-friendly workload — and self-normalize the importance weights
+workload — and self-normalize the importance weights
 p(x)/q(x).  The proposal is truncated to the prior box by rejection;
 truncation only rescales q by a constant, which cancels in
 self-normalized weights.  A defensive uniform mixture component bounds

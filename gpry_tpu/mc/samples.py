@@ -64,8 +64,7 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
     bounds = check_and_return_bounds(
         bounds if bounds is not None else gpr.bounds)
     d = bounds.shape[0]
-    # condition-aware sweep dtype (models/gp.py:sweep_dtype): float32 only
-    # when the estimated f32 log-density error is negligible
+    # sweep dtype policy: models/gp.py:sweep_dtype
     p = gpr.sweep_params()
     dt = p.X.dtype
     lo = jnp.asarray(bounds[:, 0], dt)
@@ -118,8 +117,8 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
                                                    max(1, d))))
         from gpry_tpu.models.gp import ns_proposal_params
         from gpry_tpu.parallel.mesh import available_mesh
-        # NS proposal loop in f32 where allowed; the sample is re-scored
-        # in the sweep dtype below (models/gp.py:ns_proposal_params)
+        # NS proposal loop in f32 only when asked for; the sample is then
+        # re-scored in the sweep dtype below (models/gp.py:ns_proposal_params)
         p_ns, corrected = ns_proposal_params(
             p, gpr.f32_sweep_error_estimate())
         ndt = p_ns.X.dtype
@@ -130,10 +129,8 @@ def mc_sample_from_gp(gpr, bounds=None, sampler="nested", rng=None,
                                                   0.01)),
             max_dead=max_dead, mesh=available_mesh(p_ns.X),
             # final-MC outer steps are heavy (nlive=50d chains x 5d
-            # repeats); keep each device program well under watchdog
-            # territory (observed worker kills on multi-minute programs).
-            # GPRY_TPU_NS_SEG_STEPS (via the None default) still applies
-            # when the ns_steps_per_call option is not set explicitly.
+            # repeats); keep each device program short.  Overridden by
+            # the ns_steps_per_call option or GPRY_TPU_NS_SEG_STEPS.
             max_steps_per_call=options.get(
                 "ns_steps_per_call",
                 int(os.environ.get("GPRY_TPU_NS_SEG_STEPS", 8))),

@@ -7,9 +7,10 @@ an RBF-kernel support-vector classifier that separates "finite" from
 ``y >= max(y) - diff_threshold`` (plus actual finiteness).  It gates both the
 GP training set and all predictions.
 
-TPU-native split: the *fit* (a tiny QP over <= a few thousand points, once
-per iteration) runs on host via scikit-learn/libsvm for exact decision-
-boundary parity with the reference; the *decision function* — evaluated
+Host/device split: the *fit* (a tiny QP over <= a few thousand points, once
+per iteration) runs on the host through the native C++ SMO trainer
+(``gpry_tpu.native``; scikit-learn/libsvm on request); the *decision
+function* — evaluated
 millions of times inside jitted acquisition/NS sweeps — is exported as
 fixed-shape padded arrays (support vectors, dual coefficients, intercept,
 gamma) and evaluated on device, see ``svm_decision``.
@@ -80,7 +81,7 @@ class SVM:
         self.gamma = gamma
         self.tol = tol
         self.random_state = random_state
-        self.backend = backend  # "native" (C++ SMO) with sklearn fallback
+        self.backend = backend  # "native" (C++ SMO) or "sklearn"
         self.X_train = None
         self.y_train = None
         self.y_finite = None
@@ -152,15 +153,15 @@ class SVM:
         self.all_finite = False
         gamma = None if self.gamma == "scale" else float(self.gamma)
         if self.backend == "native":
-            try:
-                from gpry_tpu.native import train_rbf_svc
-                (self._sv, self._dual, self._intercept,
-                 self._gamma_val) = train_rbf_svc(
-                    self.X_train, self.y_finite, C=self.C, gamma=gamma,
-                    tol=self.tol)
-                return self.y_finite
-            except Exception:  # toolchain missing: fall through to sklearn
-                pass
+            # raises NativeBuildError when the C++ trainer cannot be built
+            from gpry_tpu.native import train_rbf_svc
+            (self._sv, self._dual, self._intercept,
+             self._gamma_val) = train_rbf_svc(
+                self.X_train, self.y_finite, C=self.C, gamma=gamma,
+                tol=self.tol)
+            return self.y_finite
+        if self.backend != "sklearn":
+            raise ValueError(f"Unknown SVM backend {self.backend!r}.")
         from sklearn.svm import SVC
         svc = SVC(C=self.C, kernel="rbf", gamma=self.gamma, tol=self.tol)
         svc.fit(self.X_train, self.y_finite)

@@ -2,7 +2,7 @@
 MPI compatibility shim.
 
 The reference's entire communication layer (gpry/mpi.py, 218 LoC) exists to
-split embarrassingly-parallel batch axes across MPI ranks.  The TPU-native
+split embarrassingly-parallel batch axes across MPI ranks.  This
 design replaces every use with batched/sharded device computation
 (see parallel/mesh.py), so this module provides the same *names* as
 single-process no-ops — user code and scripts written against the
@@ -121,6 +121,6 @@ def multi_gather_array(arrays, root=0):
 
 def compute_y_parallel(gpr, X, with_std=False):
     """Strided-parallel GP prediction (reference: gpry/mpi.py:182-218).
-    On the TPU build prediction is already one batched device call, so this
-    just forwards."""
+    Prediction is already one batched device call here, so this just
+    forwards."""
     return gpr.predict(X, return_std=with_std)

@@ -33,8 +33,10 @@ def _load():
             subprocess.run(cmd, check=True, capture_output=True, text=True)
             os.replace(_LIB + ".tmp", _LIB)
         except (subprocess.CalledProcessError, OSError) as excpt:
+            stderr = getattr(excpt, "stderr", None) or ""
             raise NativeBuildError(
-                f"Building {os.path.basename(_SRC)} failed: {excpt}"
+                f"Building {os.path.basename(_SRC)} failed: {excpt}\n"
+                f"command: {' '.join(cmd)}\n{stderr}".rstrip()
             ) from excpt
     lib = ctypes.CDLL(_LIB)
     lib.svc_train_rbf.restype = ctypes.c_int

@@ -3,7 +3,7 @@
 // Native replacement for the reference's libsvm dependency (the SVM
 // infinities classifier, gpry/svm.py wraps sklearn.svm.SVC): the fit is a
 // small dense QP (n <= a few thousand points) solved on host once per
-// iteration; the decision function is evaluated on the TPU (see
+// iteration; the decision function is evaluated on the device (see
 // gpry_tpu/models/classifier.py).
 //
 // Algorithm: standard SMO with maximal-violating-pair working-set

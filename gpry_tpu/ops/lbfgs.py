@@ -10,8 +10,7 @@ computation.
 The solver is a compact hand-written L-BFGS (two-loop recursion with a
 static circular history + Armijo backtracking line search) rather than
 optax's zoom-linesearch L-BFGS: the zoom linesearch's nested while-loops
-produce a graph that the TPU compiler handles badly (compile time explodes
-with vmap width and eventually hits an XLA buffer-assignment CHECK), while
+produce a graph whose compile time grows quickly with vmap width, while
 this formulation is one small ``lax.while_loop`` that compiles quickly at
 any batch width.  Multi-start restarts make the simpler line search
 statistically equivalent for this workload.
@@ -57,9 +56,9 @@ def minimize_lbfgs(fun, x0, maxiter=100, tol=1e-8, memory_size=8,
     ``stall_rtol * (1 + |f|)`` for ``stall_patience`` consecutive
     iterations stops.  Under vmap, lax.while_loop runs lock-step until
     EVERY lane's cond is false, so without this, one restart wandering in
-    a bad basin forces all lanes to burn the full ``maxiter`` (measured on
-    TPU: the winning basin converges in ~15 polish iterations while losers
-    pin the loop at 120).  Default ``stall_rtol``: 16x the dtype's machine
+    a bad basin forces all lanes to burn the full ``maxiter`` (the winning
+    basin can converge in ~15 polish iterations while losers pin the loop
+    at 120).  Default ``stall_rtol``: 16x the dtype's machine
     eps — below that, per-iteration progress is rounding noise anyway.
     """
     value_and_grad = jax.value_and_grad(fun)
@@ -75,8 +74,8 @@ def minimize_lbfgs(fun, x0, maxiter=100, tol=1e-8, memory_size=8,
         """
         L-BFGS direction from the (S, Y) history, newest pair at slot 0.
         Statically unrolled over the (small) memory with static indices
-        only — dynamic gathers into the history arrays inside the while
-        loop trip the TPU compiler.
+        only: no dynamic gathers into the history arrays inside the while
+        loop.
         """
         q = g
         alphas = []

@@ -15,7 +15,7 @@ bucket size ``Nmax`` with a validity count ``n``:
 This replaces the reference's from-scratch refactorization on every data
 append (gpry/gpr.py:996-1020, 1453-1465) with an O(Nmax^2 k) *block append
 update* (``chol_append``), which is also what makes Kriging-believer
-conditioning (gpry/gp_acquisition.py:1522-1555) cheap on TPU.
+conditioning (gpry/gp_acquisition.py:1522-1555) cheap on the device.
 """
 
 from functools import partial
@@ -31,13 +31,10 @@ def _row_mask(n, nmax, dtype):
     return (jnp.arange(nmax) < n).astype(dtype)
 
 
-def masked_kernel_matrix(family, theta, X, n, noise_var, rel_jitter=0.0):
+def masked_kernel_matrix(family, theta, X, n, noise_var):
     """
     Padded training covariance: ``K[valid, valid] + noise_var * I`` on the
-    valid block, identity on the padding.  ``rel_jitter`` adds
-    ``rel_jitter * output_variance`` to the valid diagonal — used by the
-    float32 hyperparameter search to keep the Cholesky PD across the whole
-    theta box (the output variance spans ~8 orders of magnitude there).
+    valid block, identity on the padding.
     """
     nmax = X.shape[0]
     m = _row_mask(n, nmax, X.dtype)
@@ -47,9 +44,7 @@ def masked_kernel_matrix(family, theta, X, n, noise_var, rel_jitter=0.0):
     K = K + jnp.diag(kernel_diag(family, theta, X) - jnp.diagonal(K))
     K = K * (m[:, None] * m[None, :])
     # noise_var may be a scalar or a per-point (nmax,) vector
-    diag = jnp.broadcast_to(
-        jnp.asarray(noise_var, X.dtype), (nmax,)) \
-        + rel_jitter * jnp.exp(theta[0])
+    diag = jnp.broadcast_to(jnp.asarray(noise_var, X.dtype), (nmax,))
     diag_fill = jnp.where(m > 0, diag, 1.0)
     K = K + jnp.diag(diag_fill)
     return K
@@ -136,7 +131,7 @@ def chol_append(family, theta, X, y, n, noise_var, L, X_new, y_new):
 
 
 @partial(jax.jit, static_argnames=("family",))
-def masked_lml(family, theta, X, y, n, noise_var, rel_jitter=0.0):
+def masked_lml(family, theta, X, y, n, noise_var):
     """
     Log marginal likelihood of the valid block, identical to sklearn's
     ``log_marginal_likelihood`` for the same theta
@@ -146,7 +141,7 @@ def masked_lml(family, theta, X, y, n, noise_var, rel_jitter=0.0):
     """
     nmax = X.shape[0]
     m = _row_mask(n, nmax, X.dtype)
-    K = masked_kernel_matrix(family, theta, X, n, noise_var, rel_jitter)
+    K = masked_kernel_matrix(family, theta, X, n, noise_var)
     L = jnp.linalg.cholesky(K)
     z = solve_triangular(L, y, lower=True)
     quad = jnp.sum(z * z)

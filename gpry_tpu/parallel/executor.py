@@ -3,10 +3,12 @@ Host-side parallel truth evaluation.
 
 The reference parallelizes user-likelihood evaluations by splitting batches
 across MPI ranks (gpry/run.py:1200-1236, gpry/mpi.py:80-102).  In the
-single-controller TPU design the only genuinely host-bound work is this
+single-controller design the only genuinely host-bound work is this
 user-Python callable, so it runs in a local executor by default: serial
 (zero overhead for fast likelihoods), thread pool for I/O-bound or
 GIL-releasing likelihoods, process pool (cloudpickled) for CPU-bound ones.
+Pool workers are spawned, never forked, and start with JAX held to the CPU,
+so that no worker inherits or opens the accelerator the controller holds.
 
 For MULTI-HOST truth evaluation over DCN there is additionally
 ``mode="mpi"``: under ``mpirun -n k`` rank 0 keeps driving the device loop
@@ -17,7 +19,9 @@ non-root ranks run ``serve()`` — a command loop evaluating their slice of
 every broadcast batch — until the controller sends a stop.
 """
 
+import multiprocessing
 import os
+import sys
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
@@ -27,6 +31,13 @@ import numpy as np
 # cannot carry lambdas/closures — the common case for user likelihoods) and
 # materialized once per worker process.
 _WORKER_FNS = {}
+
+
+def _worker_init():
+    """Hold a pool worker's JAX, if any, to the CPU."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    if "jax" in sys.modules:
+        sys.modules["jax"].config.update("jax_platforms", "cpu")
 
 
 def _call_pickled(payload, x):
@@ -63,7 +74,10 @@ class TruthExecutor:
             # reason, gpry/mpi.py:7-11)
             import cloudpickle
             self._payload = cloudpickle.dumps(truth.logp)
-            self._pool = ProcessPoolExecutor(max_workers=self.max_workers)
+            self._pool = ProcessPoolExecutor(
+                max_workers=self.max_workers,
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=_worker_init)
         elif mode not in ("serial", "mpi"):
             raise ValueError(f"Unknown executor mode '{mode}'.")
 

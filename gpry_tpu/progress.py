@@ -1,7 +1,7 @@
 """
 Per-iteration telemetry.
 
-Reference surface: gpry/progress.py (284 LoC) — a pandas table with one row
+Reference surface: gpry/progress.py (284 LoC) — a table with one row
 per iteration (sizes, timings, eval counts, convergence value), plus Timer
 context managers.  TimerCounter additionally diffs the GPR's eval counters
 (reference: gpry/progress.py:257-285).  The ``mpi_sync`` reductions are
@@ -11,7 +11,6 @@ no-ops in the single-controller design (API kept).
 from time import perf_counter
 
 import numpy as np
-import pandas as pd
 
 _COLUMNS = (
     "n_total", "n_finite",
@@ -21,20 +20,40 @@ _COLUMNS = (
     "time_convergence", "evals_convergence",
     "convergence_crit_value",
 )
+_COL = {name: i for i, name in enumerate(_COLUMNS)}
 
 
 class Progress:
-    """Per-iteration progress table (reference: gpry/progress.py:11-173)."""
+    """Per-iteration progress table (reference: gpry/progress.py:11-173).
+
+    Rows are kept as plain lists of floats; ``data`` builds the reference's
+    pandas table on access."""
 
     def __init__(self):
-        self.data = pd.DataFrame(columns=list(_COLUMNS))
+        self.rows = []
+
+    @property
+    def data(self):
+        """The table as a pandas DataFrame, one row per iteration."""
+        import pandas as pd
+        return pd.DataFrame(self.rows, columns=list(_COLUMNS), dtype=float)
+
+    def column(self, name):
+        """One column as a float array."""
+        return np.array([row[_COL[name]] for row in self.rows], dtype=float)
+
+    def _set(self, name, value):
+        self.rows[-1][_COL[name]] = value
+
+    def _get(self, name):
+        return self.rows[-1][_COL[name]]
 
     def add_iteration(self):
-        self.data.loc[len(self.data)] = [np.nan] * len(_COLUMNS)
+        self.rows.append([np.nan] * len(_COLUMNS))
 
     def add_current_n_truth(self, n_total, n_finite):
-        self.data.iloc[-1, self.data.columns.get_loc("n_total")] = n_total
-        self.data.iloc[-1, self.data.columns.get_loc("n_finite")] = n_finite
+        self._set("n_total", n_total)
+        self._set("n_finite", n_finite)
 
     def add_acquisition(self, timer):
         self._add_timed("acquire", timer)
@@ -47,34 +66,32 @@ class Progress:
 
     def add_convergence(self, timer, value=np.nan):
         self._add_timed("convergence", timer)
-        self.data.iloc[-1, self.data.columns.get_loc(
-            "convergence_crit_value")] = value
+        self._set("convergence_crit_value", value)
 
     def _add_timed(self, phase, timer, n_evals=None, accumulate=False):
         # accumulate=True sums into the current iteration's row (a phase
         # that legitimately runs twice in one iteration, e.g. the
         # flat-surrogate exploration refit after the main fit)
-        tcol = self.data.columns.get_loc(f"time_{phase}")
-        ecol = self.data.columns.get_loc(f"evals_{phase}")
+        tcol, ecol = f"time_{phase}", f"evals_{phase}"
         evals = n_evals if n_evals is not None else \
             getattr(timer, "evals", np.nan)
         if accumulate:
-            prev_t = self.data.iloc[-1, tcol]
-            prev_e = self.data.iloc[-1, ecol]
+            prev_t = self._get(tcol)
+            prev_e = self._get(ecol)
             if np.isfinite(prev_t):
-                self.data.iloc[-1, tcol] = prev_t + timer.time
+                self._set(tcol, prev_t + timer.time)
             else:
-                self.data.iloc[-1, tcol] = timer.time
+                self._set(tcol, timer.time)
             # sum when both are finite; otherwise keep whichever is
             # finite (a NaN second call must not erase a recorded count)
             if np.isfinite(prev_e) and np.isfinite(evals):
                 evals = prev_e + evals
             elif np.isfinite(prev_e):
                 evals = prev_e
-            self.data.iloc[-1, ecol] = evals
+            self._set(ecol, evals)
             return
-        self.data.iloc[-1, tcol] = timer.time
-        self.data.iloc[-1, ecol] = evals
+        self._set(tcol, timer.time)
+        self._set(ecol, evals)
 
     def mpi_sync(self):
         """No-op (single-controller); kept for API parity."""
@@ -92,10 +109,10 @@ class Progress:
         if truth:
             cols.insert(1, "time_truth")
         fig, ax = plt.subplots(figsize=(8, 4.5))
-        bottom = np.zeros(len(self.data))
-        x = np.arange(len(self.data))
+        bottom = np.zeros(len(self.rows))
+        x = np.arange(len(self.rows))
         for col in cols:
-            vals = np.nan_to_num(self.data[col].to_numpy(dtype=float))
+            vals = np.nan_to_num(self.column(col))
             ax.bar(x, vals, bottom=bottom, label=col[len("time_"):])
             bottom += vals
         ax.set_xlabel("iteration")
@@ -109,7 +126,9 @@ class Progress:
         return fig
 
     def __repr__(self):
-        return repr(self.data)
+        return "\n".join([" ".join(_COLUMNS)]
+                         + [" ".join(f"{v:g}" for v in row)
+                            for row in self.rows])
 
 
 class Timer:

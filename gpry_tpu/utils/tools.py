@@ -3,7 +3,7 @@ Math and configuration utilities.
 
 Provides the same utility surface as the reference's ``gpry/tools.py``
 (dimension-scaling config DSL, chi-squared credible-region geometry, Gaussian
-KL divergences, bounds handling), re-implemented for the TPU-native build.
+KL divergences, bounds handling), re-implemented for this build.
 Host-side (NumPy) on purpose: these run in the outer driver loop, never
 inside jitted code.
 

@@ -2,7 +2,7 @@
 Minimal API-compatible test double for the slice of Cobaya that gpry_tpu
 touches — NOT cobaya, and never pretending to be outside the test suite.
 
-cobaya is not installable in the TPU image, but the Cobaya interop code
+cobaya is not installed in the test image, but the Cobaya interop code
 (TruthCobaya, CobayaWrapper, the surrogate-as-likelihood MC route in
 mc/cobaya_mc.py) must actually execute in tests (VERDICT r1 item 4).
 Tests inject this module as ``sys.modules["cobaya"]`` (plus the

@@ -3,7 +3,7 @@ Minimal API-compatible test doubles for the slices of pypolychord,
 ultranest and nessai that gpry_tpu's host NS adapters touch — NOT the real
 packages, and never pretending to be outside the test suite.
 
-None of the three samplers is installable in the TPU image, but the host
+None of the three samplers is installed in the test image, but the host
 adapter code (gpry_tpu/mc/interfaces.py InterfacePolyChord /
 InterfaceUltraNest / InterfaceNessai) must actually execute in tests.
 Tests inject these modules via ``install_polychord()`` /

@@ -316,7 +316,7 @@ def test_sweep_dtype_policy(rng):
 
 def test_f32_sweep_error_estimate_tracks_reality(rng):
     """The error estimate must upper-bound-ish the actual f32-vs-f64
-    prediction discrepancy (same formula validated on TPU)."""
+    prediction discrepancy."""
     import jax.numpy as jnp
     from gpry_tpu.models.gp import cast_surrogate, surrogate_predict
 
@@ -348,7 +348,7 @@ def test_f32_sweep_error_estimate_tracks_reality(rng):
 
 
 def test_lml_batch_chunked_matches_unchunked(rng, monkeypatch):
-    """Memory-budgeted screen chunking (the d=16 HBM-OOM fix) must return
+    """Memory-budgeted screen chunking (the d=16 device-memory fix) must return
     exactly the same LML values as one vmapped sweep, including the padded
     last chunk."""
     import jax.numpy as jnp

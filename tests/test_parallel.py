@@ -59,7 +59,7 @@ def test_sharded_predict_matches_single(mesh8, params):
 
 def test_tp_predict_matches(mesh8, params):
     """The production TP entry point (training axis sharded, psum mean +
-    K^-1 quadratic-form std) must match the single-device gated predict."""
+    L^-1 sum-of-squares std) must match the single-device gated predict."""
     rng = np.random.default_rng(2)
     Xq = jnp.asarray(rng.uniform(size=(8, 4)), params.X.dtype)
     with mesh8:
@@ -543,7 +543,7 @@ def test_runner_mpi_executor_end_to_end(monkeypatch):
 
 def test_tp_predict_matches_surrogate_predict(mesh8, params):
     """TP (training-axis) gated prediction must reproduce the single-device
-    surrogate_predict results (same gates, K^-1 quadratic form for std)."""
+    surrogate_predict results (same gates, L^-1 sum of squares for std)."""
     from gpry_tpu.parallel.mesh import tp_predict
 
     rng = np.random.default_rng(4)
@@ -595,3 +595,38 @@ def test_tp_predict_applies_gates(mesh8, params):
     assert np.any(np.asarray(mean_tp) == -np.inf)
     assert np.all(np.asarray(mean_tp)[np.isfinite(np.asarray(mean_tp))]
                   <= 0.5 + 1e-12)
+
+
+def test_tp_predict_variance_on_ill_conditioned_kernel(mesh8):
+    """On a kernel near the polynomial regime (huge amplitude, long
+    length-scales, cond(K) ~ 1e13), the TP variance must agree with the
+    single-device triangular solve to rounding of the prior variance (an
+    explicit K^-1 quadratic form misses by orders of magnitude there)."""
+    from gpry_tpu import config
+
+    rng = np.random.default_rng(7)
+    d, n, nmax = 4, 200, 256
+    dt = config.FIT_DTYPE
+    X = np.zeros((nmax, d))
+    X[:n] = rng.uniform(size=(n, d))
+    y = np.zeros(nmax)
+    y[:n] = -np.sum((X[:n] - 0.5) ** 2, axis=1)
+    y[:n] = (y[:n] - y[:n].mean()) / y[:n].std()
+    theta = jnp.asarray(make_theta(np.exp(5.7), [10.0] * d), dt)
+    Xd, yd = jnp.asarray(X, dt), jnp.asarray(y, dt)
+    L, alpha = factorize("rbf", theta, Xd, yd, n, 1e-5)
+    p = SurrogateParams(
+        theta=theta, X=Xd, y=yd, n=jnp.asarray(n, jnp.int32),
+        noise_var=jnp.asarray(1e-5, dt), L=L, alpha=alpha,
+        x_loc=jnp.zeros(d, dt), x_scale=jnp.ones(d, dt),
+        y_loc=jnp.asarray(0.0, dt), y_scale=jnp.asarray(1.0, dt),
+        y_max=jnp.max(yd), clip_max=jnp.asarray(np.inf, dt),
+        svm=trivial_svm_params(d, dtype=dt),
+        trust_lo=jnp.full(d, -jnp.inf, dt),
+        trust_hi=jnp.full(d, jnp.inf, dt))
+    Xq = jnp.asarray(rng.uniform(size=(16, d)), dt)
+    _, std_tp = tp_predict("rbf", p, Xq, mesh8)
+    _, std = surrogate_predict("rbf", p, Xq)
+    prior_var = float(np.exp(theta[0]))
+    err = np.max(np.abs(np.asarray(std_tp) ** 2 - np.asarray(std) ** 2))
+    assert err <= 1e-12 * prior_var

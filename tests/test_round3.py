@@ -619,7 +619,7 @@ class _DummyGPR:
 
 
 # ---------------------------------------------------------------------------
-# Crash-resilient driver (docs/ROUND2.md d>=16 TPU-worker-crash mode)
+# Crash-resilient driver (checkpoint resume after a runtime failure)
 # ---------------------------------------------------------------------------
 
 
@@ -636,7 +636,7 @@ def test_run_resilient_recovers_from_worker_crash(tmp_path, monkeypatch):
         calls["n"] += 1
         if calls["n"] == 2:
             raise RuntimeError(
-                "UNAVAILABLE: TPU worker process crashed or restarted")
+                "UNAVAILABLE: device runtime lost its state")
         return orig(self, X, y)
 
     monkeypatch.setattr(run_mod.Runner, "_fit_gpr", crashing_fit)
@@ -694,10 +694,14 @@ def test_is_retryable_device_error():
     from gpry_tpu.run import is_retryable_device_error
 
     assert is_retryable_device_error(
-        RuntimeError("UNAVAILABLE: TPU worker process crashed"))
+        RuntimeError("UNAVAILABLE: device runtime lost its state"))
     assert is_retryable_device_error(
         RuntimeError("DEADLINE_EXCEEDED while fetching"))
     assert not is_retryable_device_error(ValueError("bad input"))
+    # a machine without its accelerator fails at once
+    assert not is_retryable_device_error(RuntimeError(
+        "Unable to initialize backend 'cuda': no supported devices"))
+    assert not is_retryable_device_error(RuntimeError("socket closed"))
 
 
 def test_check_candidates_empty_batch():
@@ -758,7 +762,7 @@ def test_retryable_crash_keeps_mpi_workers_serving(tmp_path, monkeypatch):
     monkeypatch.setattr(mpi, "sync_processes", lambda: synced.append(1))
 
     def crash_retryable(self):
-        raise RuntimeError("UNAVAILABLE: TPU worker process crashed")
+        raise RuntimeError("UNAVAILABLE: device runtime lost its state")
 
     monkeypatch.setattr(run_mod.Runner, "_run_main_loop", crash_retryable)
     with pytest.raises(RuntimeError, match="UNAVAILABLE"):
@@ -776,7 +780,7 @@ def test_retryable_crash_keeps_mpi_workers_serving(tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# Phase-boundary liveness heartbeats (benchmarks/d16.py watchdog contract)
+# Phase-boundary liveness heartbeats (external watchdog contract)
 # ---------------------------------------------------------------------------
 
 def test_liveness_heartbeat_touched_and_picklable(tmp_path):
